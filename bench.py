@@ -1,7 +1,7 @@
-"""Benchmark entry point: flagship SpMV on the TPU chip.
+"""Benchmark entry point: flagship SpMV on the GPU (exits on any other device).
 
-Prints ONE JSON line (see lanczos_tpu/utils/bench_impl.py for details and
-the baseline definition)."""
+Prints the device and ONE JSON line (see lanczos_tpu/utils/bench_impl.py for
+details and the baseline definition)."""
 
 from lanczos_tpu.utils.bench_impl import main
 

@@ -1,6 +1,6 @@
-"""lanczos_tpu — a TPU-native Lanczos eigensolver framework.
+"""lanczos_tpu — a Lanczos eigensolver framework in JAX, run on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
+A from-scratch JAX/XLA re-design of the capabilities of the reference
 ``jgslunde/Lanczos`` codebase (see SURVEY.md): sparse/matrix-free Hamiltonian
 assembly on regular grids and irregular multi-resolution lattices, the
 symmetric and two-sided Lanczos recurrences compiled as single XLA programs,

@@ -13,17 +13,41 @@ constants (3Ddeuteron.py:63-71).  This CLI covers both as subcommands:
 from __future__ import annotations
 
 import argparse
-import sys
+import dataclasses
 import time
+from typing import Any, Optional
+
+# --platform gpu names the CUDA backend and keeps the CPU backend beside it:
+# potential sampling pins itself to the CPU (models/lattice.py).  The alias
+# "gpu" would also ask for ROCm, and an explicitly listed platform that fails
+# to start is an error.
+_PLATFORMS = {"cpu": "cpu", "gpu": "cuda,cpu"}
+
+
+@dataclasses.dataclass
+class Solve:
+    """What a solve subcommand returns to an in-process caller.
+
+    ``result.eigenvectors`` are in the input's point order (grid raster
+    order, or lattice point order for the irregular solvers), whatever
+    layout the operator used internally."""
+
+    result: Any
+    operator: Any
+    lattice: Optional[Any]
+    build_s: float  # grid / lattice construction and operator assembly
+    solve_s: float  # eigensolver wall time, first compilation included
 
 
 def _configure_platform(args):
+    """Select the backend.  ``auto`` keeps JAX's default device for every
+    dtype (the GPU when one is present: the card runs fp64 natively)."""
     import jax
 
-    if args.platform == "cpu" or (
-        args.platform == "auto" and args.dtype == "float64"
-    ):
-        jax.config.update("jax_platforms", "cpu")
+    if args.platform != "auto":
+        jax.config.update("jax_platforms", _PLATFORMS[args.platform])
+        if args.platform == "gpu" and jax.devices()[0].platform != "gpu":
+            raise SystemExit("--platform gpu: JAX found no GPU")
     if args.dtype == "float64":
         jax.config.update("jax_enable_x64", True)
     return jax
@@ -38,8 +62,8 @@ def _add_common(p):
         "--dtype", default="float32", choices=["float32", "float64"]
     )
     p.add_argument(
-        "--platform", default="auto", choices=["auto", "cpu", "tpu"],
-        help="auto = cpu for float64, default device otherwise",
+        "--platform", default="auto", choices=["auto", "cpu", "gpu"],
+        help="auto = JAX's default device (the GPU when present)",
     )
     p.add_argument("--out", default=None, help="prefix for .npy eigenpair dump")
 
@@ -50,11 +74,14 @@ def cmd_solve_regular(args):
 
     import lanczos_tpu as lt
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     h = lt.build_regular_hamiltonian(
         args.N, args.L, lt.deuteron_potential_3d,
         stencil=args.stencil, dtype=args.dtype,
     )
+    jax.block_until_ready(h)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
     if args.restart:
         res = lt.eigsh_restarted(
             h, k=args.k, max_basis=args.max_basis, tol=args.tol,
@@ -70,15 +97,18 @@ def cmd_solve_regular(args):
             h, k=args.k, n=args.n, which="SA", seed=args.seed,
             reorth=args.reorth, dtype=args.dtype,
         )
-    jax.block_until_ready(res.eigenvalues)
+    jax.block_until_ready((res.eigenvalues, res.eigenvectors))
+    t_solve = time.perf_counter() - t0
     print(f"# regular {args.N}^3 grid, {args.stencil}-pt stencil, "
-          f"{time.time()-t0:.1f}s on {jax.default_backend()}")
+          f"build {t_build:.1f}s, solve {t_solve:.1f}s on "
+          f"{jax.devices()[0].device_kind}")
     print(res.summary(print_nr=args.k))
     if args.out:
         from lanczos_tpu.utils.io import save_eigpairs
 
         save_eigpairs(args.out, res.eigenvalues, res.eigenvectors)
         print(f"# saved {args.out}_eigvals.npy / _eigvecs.npy")
+    return Solve(res, h, None, t_build, t_solve)
 
 
 def cmd_solve_irregular(args):
@@ -87,7 +117,7 @@ def cmd_solve_irregular(args):
 
     import lanczos_tpu as lt
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     lat = lt.build_lattice(
         args.N, args.L, args.box_depth,
         potential=lt.deuteron_potential_3d,
@@ -96,98 +126,92 @@ def cmd_solve_irregular(args):
     print(f"# lattice: {lat.num_points} points "
           f"(fine grid {args.N}^3 = {args.N**3}), spacings "
           f"{sorted(set(lat.spacings.tolist()))}")
-    if args.symmetrize == "none":
-        if args.solver == "krylov-schur":
-            # The robust fp32 path (solver/arnoldi.py): Krylov-Schur on the
-            # raw non-symmetric operator, verified against true residuals.
-            # On TPU, run it on the composite operator (stencil-speed SpMV);
-            # its vectors live in level-major order — permute back for
-            # saving.
-            perm = None
-            if jax.default_backend() != "cpu":
-                from lanczos_tpu.models.irr_hamiltonian import (
-                    assemble_irregular_hamiltonian_composite,
-                )
-
-                op, perm = assemble_irregular_hamiltonian_composite(
-                    lat, lt.deuteron_potential_3d, dtype=args.dtype
-                )
-            else:
-                op = lt.assemble_irregular_hamiltonian(
-                    lat, lt.deuteron_potential_3d, symmetrize=None,
-                    dtype=args.dtype,
-                )
-            res = lt.eigs_nonsym(
-                op, k=args.k, max_basis=args.n, tol=args.tol,
-                seed=args.seed, dtype=args.dtype,
-                compensated=args.compensated, verbose=args.verbose,
-            )
-            jax.block_until_ready(res.eigenvalues)
-            print(f"# Krylov-Schur (Arnoldi), basis {args.n}, "
-                  f"{time.time()-t0:.1f}s on {jax.default_backend()}")
-            print(res.summary(print_nr=args.k))
-            if args.out:
-                from lanczos_tpu.utils.io import save_eigpairs
-
-                vecs = np.asarray(res.eigenvectors)
-                if perm is not None:
-                    back = np.empty_like(vecs)
-                    back[perm] = vecs
-                    vecs = back
-                save_eigpairs(args.out, res.eigenvalues, vecs)
-        else:
-            # Two-sided biorthogonal path (reference IrrLanczos.py:77-187).
-            # On TPU both directions run on the fast v2 composite format:
-            # H^T is materialized at assembly (build_transpose, r5).
-            perm2 = None
-            if jax.default_backend() != "cpu":
-                from lanczos_tpu.models.irr_hamiltonian import (
-                    assemble_irregular_hamiltonian_composite2,
-                )
-
-                h, perm2 = assemble_irregular_hamiltonian_composite2(
-                    lat, lt.deuteron_potential_3d, dtype=args.dtype,
-                    build_transpose=True,
-                )
-            else:
-                h = lt.assemble_irregular_hamiltonian(
-                    lat, lt.deuteron_potential_3d, symmetrize=None,
-                    dtype=args.dtype,
-                )
-            fac = lt.two_sided_lanczos(
-                h, args.n, seed=args.seed, op_transpose=h.transpose(),
-                dtype=args.dtype, compensated=args.compensated,
-            )
-            res = lt.two_sided_eigs(fac, k=args.k, op=h, residual_tol=args.tol)
-            print(f"# two-sided Lanczos, breakdown at "
-                  f"{int(fac.breakdown_iter)}/{args.n}, "
-                  f"max biorth drift {float(np.max(np.asarray(fac.biorth_drift))):.2e}, "
-                  f"{time.time()-t0:.1f}s")
-            print(res.summary(print_nr=args.k))
-            if args.out:
-                from lanczos_tpu.utils.io import save_eigpairs
-
-                vecs = np.asarray(res.eigenvectors)
-                if perm2 is not None:
-                    vecs = vecs[perm2, :]  # region layout -> lattice order
-                save_eigpairs(args.out, res.eigenvalues, vecs)
-    else:
+    on_cpu = jax.default_backend() == "cpu"
+    to_lattice = None  # operator slot order -> lattice point order
+    if args.symmetrize != "none":
         h = lt.assemble_irregular_hamiltonian(
             lat, lt.deuteron_potential_3d, symmetrize=args.symmetrize,
             dtype=args.dtype,
         )
+    elif on_cpu:
+        h = lt.assemble_irregular_hamiltonian(
+            lat, lt.deuteron_potential_3d, symmetrize=None, dtype=args.dtype,
+        )
+    elif args.solver == "krylov-schur":
+        # On an accelerator the composite operator (stencil-speed SpMV);
+        # its vectors live in level-major order.
+        from lanczos_tpu.models.irr_hamiltonian import (
+            assemble_irregular_hamiltonian_composite,
+        )
+
+        h, perm = assemble_irregular_hamiltonian_composite(
+            lat, lt.deuteron_potential_3d, dtype=args.dtype
+        )
+
+        def to_lattice(vecs):
+            back = np.empty_like(vecs)
+            back[perm] = vecs
+            return back
+    else:
+        # Two-sided on an accelerator: both directions on the v2 composite
+        # format, with H^T materialized at assembly.
+        from lanczos_tpu.models.irr_hamiltonian import (
+            assemble_irregular_hamiltonian_composite2,
+        )
+
+        h, idx_map = assemble_irregular_hamiltonian_composite2(
+            lat, lt.deuteron_potential_3d, dtype=args.dtype,
+            build_transpose=True,
+        )
+
+        def to_lattice(vecs):
+            return vecs[idx_map, :]
+    jax.block_until_ready(h)
+    t_build = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if args.symmetrize != "none":
         res = lt.eigsh(
             h, k=args.k, n=args.n, which="SA", seed=args.seed,
             dtype=args.dtype,
         )
-        print(f"# symmetrize={args.symmetrize}, {time.time()-t0:.1f}s "
-              "(NOTE: symmetrized irregular operators carry spurious "
-              "interface modes; prefer --symmetrize none)")
-        print(res.summary(print_nr=args.k))
-        if args.out:
-            from lanczos_tpu.utils.io import save_eigpairs
+        label = (f"symmetrize={args.symmetrize} (NOTE: symmetrized irregular "
+                 "operators carry spurious interface modes; prefer "
+                 "--symmetrize none)")
+    elif args.solver == "krylov-schur":
+        # The robust fp32 path (solver/arnoldi.py): Krylov-Schur on the raw
+        # non-symmetric operator, verified against true residuals.
+        res = lt.eigs_nonsym(
+            h, k=args.k, max_basis=args.n, tol=args.tol,
+            seed=args.seed, dtype=args.dtype,
+            compensated=args.compensated, verbose=args.verbose,
+        )
+        label = f"Krylov-Schur (Arnoldi), basis {args.n}"
+    else:
+        # Two-sided biorthogonal path (reference IrrLanczos.py:77-187).
+        fac = lt.two_sided_lanczos(
+            h, args.n, seed=args.seed, op_transpose=h.transpose(),
+            dtype=args.dtype, compensated=args.compensated,
+        )
+        res = lt.two_sided_eigs(fac, k=args.k, op=h, residual_tol=args.tol)
+        drift = float(np.max(np.asarray(fac.biorth_drift)))
+        label = (f"two-sided Lanczos, breakdown at "
+                 f"{int(fac.breakdown_iter)}/{args.n}, max biorth drift "
+                 f"{drift:.2e}")
+    jax.block_until_ready((res.eigenvalues, res.eigenvectors))
+    t_solve = time.perf_counter() - t0
+    print(f"# {label}, build {t_build:.1f}s, solve {t_solve:.1f}s on "
+          f"{jax.devices()[0].device_kind}")
+    print(res.summary(print_nr=args.k))
+    if to_lattice is not None:
+        res = dataclasses.replace(
+            res, eigenvectors=to_lattice(np.asarray(res.eigenvectors))
+        )
+    if args.out:
+        from lanczos_tpu.utils.io import save_eigpairs
 
-            save_eigpairs(args.out, res.eigenvalues, res.eigenvectors)
+        save_eigpairs(args.out, res.eigenvalues, res.eigenvectors)
+    return Solve(res, h, lat, t_build, t_solve)
 
 
 def cmd_export_matrix(args):
@@ -224,7 +248,7 @@ def cmd_bench(args):
     bench_main()
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="lanczos_tpu")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -277,9 +301,17 @@ def main(argv=None):
     p = sub.add_parser("bench", help="flagship SpMV benchmark (JSON line)")
     p.set_defaults(fn=cmd_bench)
 
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    """Run one subcommand; solve subcommands return their :class:`Solve`."""
+    from lanczos_tpu.utils.compile_cache import enable_compile_cache
+
+    args = build_parser().parse_args(argv)
+    enable_compile_cache()
     return args.fn(args)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    main()

@@ -1,12 +1,12 @@
 """Regular-grid geometry, Laplacian stencils, and Hamiltonian assembly.
 
-TPU-first replacement for the reference's regular operator-assembly layer
+Matrix-free replacement for the reference's regular operator-assembly layer
 (/root/reference/Python/Regular/Hamiltonian.py).  Where the reference builds
 an explicit scipy CSR matrix point-by-point in an N^3 Python loop
 (Hamiltonian.py:62-67), we represent H = -T + V as a matrix-free
 StencilOperator: the Laplacian stencil applied with jnp.roll plus a diagonal
 potential — zero assembly cost, zero matrix storage, and an SpMV that streams
-x once through HBM.
+x through device memory.
 
 Stencil weights are golden values from the reference:
   7-point:  Hamiltonian.py:20-21  (center -6, faces 1)
@@ -162,7 +162,7 @@ def build_regular_hamiltonian(
             np.asarray(g, dtype=np.dtype(dtype)) for g in grid.coordinate_grids()
         )
         # One jitted evaluation: eager jnp ops here would dispatch one device
-        # program per arithmetic op (very slow over a remote-TPU link).
+        # program per arithmetic op.
         vgrid = jax.jit(lambda *cs: potential(*cs).reshape(-1))(*coord_grids)
         diag = jnp.asarray(vgrid, dtype=dtype)
 

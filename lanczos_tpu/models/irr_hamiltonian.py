@@ -21,7 +21,7 @@ of point i's cloud need not match point j's).  The RECOMMENDED solve path is
 solver.two_sided.two_sided_lanczos on the raw operator: its spectrum is
 clean (the pure kinetic part has smallest real eigenvalue 0, measured on the
 two-level N=60 lattice).  NOTE on precision/depth: in fp64 (CPU) the N=60
-problem converges at n=250; in fp32 on TPU large lattices (N=120, P=272k,
+problem converges at n=250; in fp32 large lattices (N=120, P=272k,
 spectral radius ~1e3) need substantially deeper Krylov runs and residual
 filtering — two-sided Ritz values whose residual ||Hx - lambda x|| is not
 small are ghosts and must be discarded (use results.acceptance_inner_prod
@@ -197,12 +197,12 @@ def assemble_irregular_hamiltonian_composite(
     rest_energy: float = DEUTERON_REDUCED_REST_ENERGY_MEV,
     dtype=np.float32,
 ):
-    """H = -T + V as a CompositeOperator (the TPU-fast irregular format).
+    """H = -T + V as a CompositeOperator (the stencil-speed irregular format).
 
     Returns (op, perm): ``perm`` maps lattice point order -> the operator's
     level-major order (operator vectors are lattice vectors indexed by perm;
     see ops.composite).  Numerically identical to the padded-ELL assembly,
-    but the SpMV runs at stencil speed on TPU instead of XLA-gather speed.
+    but the SpMV runs as per-level stencils instead of a gather.
     """
     import jax
 
@@ -233,7 +233,6 @@ def assemble_irregular_hamiltonian_composite2(
     dtype=np.float32,
     min_grid_rows: int = 16,
     build_transpose: bool = False,
-    fuse_interface: bool = False,
 ):
     """H = -T + V as a CompositeV2 (region-native strided irregular format).
 
@@ -245,8 +244,7 @@ def assemble_irregular_hamiltonian_composite2(
 
     ``build_transpose=True`` materializes H^T in the same format so the
     two-sided recurrence (reference IrrLanczos.py:126-127) runs both
-    directions at v2 speed; ``fuse_interface=True`` enables the Pallas
-    fused interface kernel (ops.interface_kernel).
+    directions at v2 speed.
     """
     import jax
 
@@ -266,7 +264,6 @@ def assemble_irregular_hamiltonian_composite2(
     return build_composite_v2(
         lat, nbrs, rels, weights, diag, scale=-t_factor, dtype=dtype,
         min_grid_rows=min_grid_rows, build_transpose=build_transpose,
-        fuse_interface=fuse_interface,
     )
 
 

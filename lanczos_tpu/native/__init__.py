@@ -3,9 +3,12 @@
 The reference leans on scipy/cuSPARSE C code for its host-side sparse
 machinery (SURVEY.md §2.3); this package provides the framework's own native
 layer: the lattice graph-builder (neighbor search + mirror filter) and the
-ELL packer.  The shared library is compiled lazily with g++ on first use and
-cached next to the source keyed by a source hash; every entry point has a
-pure-numpy fallback, so the framework works (slower) without a toolchain.
+ELL packer.  The shared library is compiled lazily with g++ on first use
+for the generic target of the host's architecture (no -march=native), and
+cached next to the source keyed by the source hash and the host's machine
+type and compiler, so a library built on another kind of host is never
+loaded.  Every entry point has a pure-numpy fallback, so the framework works
+(slower) without a toolchain.
 
 Public surface:
     available()            -> bool: native engine present (compiles on demand)
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import subprocess
 import tempfile
 import threading
@@ -42,12 +46,24 @@ _I32 = ctypes.POINTER(ctypes.c_int32)
 _F64 = ctypes.POINTER(ctypes.c_double)
 
 
+def _compiler_version() -> str:
+    try:
+        out = subprocess.run(
+            ["g++", "--version"], check=True, capture_output=True, text=True,
+            timeout=30,
+        )
+    except (subprocess.SubprocessError, OSError):
+        return ""
+    return out.stdout.splitlines()[0] if out.stdout else ""
+
+
 def _build_and_load() -> Optional[ctypes.CDLL]:
     with open(_SRC, "rb") as f:
         src = f.read()
-    tag = hashlib.sha256(src).hexdigest()[:16]
+    host = f"{platform.system()}-{platform.machine()}-{_compiler_version()}"
+    tag = hashlib.sha256(src + host.encode()).hexdigest()[:16]
     cache_dir = os.environ.get(
-        "LANCZOS_TPU_NATIVE_CACHE", os.path.join(os.path.dirname(_SRC), "_build")
+        "LANCZOS_NATIVE_CACHE", os.path.join(os.path.dirname(_SRC), "_build")
     )
     so_path = os.path.join(cache_dir, f"neighbor_engine_{tag}.so")
     if not os.path.exists(so_path):
@@ -57,7 +73,7 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=cache_dir)
         os.close(fd)
         cmd = [
-            "g++", "-O3", "-march=native", "-std=c++17", "-fopenmp",
+            "g++", "-O3", "-std=c++17", "-fopenmp",
             "-shared", "-fPIC", _SRC, "-o", tmp,
         ]
         try:

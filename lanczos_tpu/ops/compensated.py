@@ -1,14 +1,15 @@
-"""Error-free-transform (double-word) reductions for fp32 TPU Lanczos.
+"""Error-free-transform (double-word) reductions for fp32 Lanczos.
 
 The reference runs everything in fp64 on CPU/GPU (e.g.
-/root/reference/Python/Regular/Lanczos.py:75 ``dtype=np.float64``).  TPUs have
-no fast fp64, so the recurrence runs in fp32 — whose plain dot products over
+/root/reference/Python/Regular/Lanczos.py:75 ``dtype=np.float64``).  The
+fp32 recurrence halves the basis memory and bandwidth, but its plain dot
+products over
 M ~ 10^6..10^7 elements carry ~log2(M)*eps ≈ 1e-6 relative rounding, putting a
 ~3e-5 floor on achievable Ritz residuals.  This module restores fp64-class
 *reduction* accuracy at fp32 storage/bandwidth cost using classical
 error-free transformations (Ogita, Rump & Oishi, "Accurate Sum and Dot
 Product", SISC 2005; Dekker 1971 splitting — no FMA required, so the result
-is exact on any IEEE backend, TPU VPU included):
+is exact on any IEEE backend):
 
 * ``two_sum`` / ``two_prod`` — exact a+b = s+e and a*b = p+e decompositions.
 * ``dd_sum_tree`` — vectorized binary-tree reduction in double-word (hi, lo)
@@ -19,7 +20,7 @@ is exact on any IEEE backend, TPU VPU included):
   error in fp32 — the alpha/beta entries of the Lanczos tridiagonal can then
   be consumed in fp64 on the host for the (tiny) tridiagonal eigensolve.
 
-Everything is elementwise VPU work — no matmuls — and safe under jit/scan.
+Everything is elementwise work — no matmuls — and safe under jit/scan.
 XLA does not apply unsafe floating-point reassociation by default, which the
 transformations rely on.
 """
@@ -48,7 +49,7 @@ def _bar(*xs):
     XLA:CPU's expression-level simplifier rewrites patterns like
     ``(a + b) - a`` across fused producer/consumer chains, silently
     destroying the EFT cancellation (measured: a jitted dd residual chain
-    degraded from 1e-14 to 2e-8 on CPU; the TPU compiler preserves it).
+    degraded from 1e-14 to 2e-8 on CPU; XLA:GPU preserves it).
     Barriers pin the evaluation order at each primitive boundary at
     negligible cost — these ops are bandwidth-bound either way.
     """

@@ -1,11 +1,10 @@
-"""Composite multi-level operator: the TPU-native irregular-lattice SpMV.
+"""Composite multi-level operator: the stencil-form irregular-lattice SpMV.
 
 Why this exists: the padded-ELL gather SpMV is the natural *generic* sparse
-format, but XLA lowers element gathers on TPU through a scalar path
-(~7 ns/element measured on v5e — 109 ms for the N=96 deuteron lattice),
-while contiguous row/box gathers and static slices run at full vector
-speed.  The multi-resolution lattice has exactly the structure needed to
-avoid element gathers almost everywhere:
+format, but it reads an index and a value per nonzero, while contiguous
+row/box gathers and static slices read only the vector.  The
+multi-resolution lattice has exactly the structure needed to avoid element
+gathers almost everywhere:
 
 * points sorted level-major (all boxes of one spacing contiguous) make each
   level a dense (nbox, m, m, m) array — the reference's box decomposition
@@ -20,8 +19,8 @@ avoid element gathers almost everywhere:
   gather.
 
 The operator is numerically identical to the EllOperator assembled from the
-same lattice (tests cross-check), but runs at stencil speed on TPU instead
-of gather speed.
+same lattice (tests cross-check), but runs as per-level stencils instead of
+element gathers.
 """
 
 from __future__ import annotations
@@ -67,8 +66,8 @@ class LevelBlock:
 _DIRS = tuple(v for v in itertools.product((-1, 0, 1), repeat=3) if any(v))
 
 #: Interface block width: aligned block size for the block-ELL gather.  32
-#: keeps each (z, y) line of a neighbor cloud inside 1-2 blocks (fetch count
-#: is what the TPU gather charges for) at acceptable padded-lane waste.
+#: keeps each (z, y) line of a neighbor cloud inside 1-2 blocks (fewer
+#: fetched blocks) at acceptable padded-lane waste.
 IFC_W = 32
 
 
@@ -76,7 +75,7 @@ def _halo_pad(xl: jax.Array, adj: jax.Array) -> jax.Array:
     """(nbox, m, m, m) -> (nbox, m+2, m+2, m+2) with 26-direction halos.
 
     Each direction's halo is a face/edge/corner slab taken from the adjacent
-    box (a take over the box axis — contiguous block gather, fast on TPU),
+    box (a take over the box axis — contiguous block gather),
     zeroed where adjacency is -1.  Coordinate axes are (z, y, x) slow->fast;
     direction tuples are (dx, dy, dz) per the lattice's axis-0-fastest
     convention, so component 0 indexes the LAST array axis.
@@ -142,7 +141,7 @@ class CompositeOperator(LinearOperator):
     # Block-ELL form of the same interface rows: columns grouped into
     # IFC_W-wide aligned blocks with the values pre-scattered into per-lane
     # weight vectors.  The SpMV then needs only sum_b R_b*B_b whole-block row
-    # gathers (the vectorized gather path on TPU) + einsums — no element
+    # gathers + einsums — no element
     # gathers.  Rows are BUCKETED by their real block count (the count
     # distribution is heavily skewed: median ~11 vs max ~47 on the N=96
     # deuteron lattice) so padding blocks are not fetched for the majority.
@@ -185,9 +184,8 @@ class CompositeOperator(LinearOperator):
         # H x = M_int (D + sum S) x + M_ifc ELL x: compute the composite
         # stencil everywhere, then overwrite the interface rows with their
         # full exact LSQ rows (incl. diagonal).  The interface rows apply in
-        # bucketed block-ELL form: whole-block row gathers (the vectorized
-        # TPU gather path — element gathers cost ~7 ns each through the
-        # scalar path) contracted against precomputed per-lane weights.
+        # bucketed block-ELL form: whole-block row gathers contracted against
+        # precomputed per-lane weights.
         y = self._interior(x)
         xb = self._x_blocks(x)
         for rows, blk_ids, blk_w in self.ifc_buckets:

@@ -18,8 +18,7 @@ fall into a small set of translation-equivalent stencil classes):
   region), so basis memory/bandwidth barely grows, and the matvec needs NO
   layout conversion at all: each level is a contiguous slice.
 
-* One regular-grid stencil application per level (the Pallas slab kernel on
-  TPU via its zero-relayout flat path, the roll/MXU path elsewhere).  Rows
+* One regular-grid stencil application per level (StencilOperator).  Rows
   whose stencil would read a site the level does not own are interface rows
   by construction (different-spacing contact implies the reference's
   mirror-filtered edge path, IrrGrid.py:97-137); their interior value is
@@ -32,10 +31,9 @@ fall into a small set of translation-equivalent stencil classes):
   own spacing + per-tap source level).  The rows of one signature tile
   rectangular affine grids (faces/edges/corners of the box structure); each
   tap of a class is then one STATIC strided slice of the source level's
-  region (face-sized, vector-speed — measured ~0.6 us/op on v5e vs ~44 us
-  for the equivalent ``conv_general_dilated``, which was tried and
-  rejected), and the class result enters the output through one
-  interior-padded block add.  No gathers, no element scatters; cost is
+  region (face-sized elementwise work; the equivalent
+  ``conv_general_dilated`` was tried and rejected), and the class result
+  enters the output through one interior-padded block add.  No gathers, no element scatters; cost is
   O(classes * taps) tiny device ops, independent of lattice size.
 
 * Rows that defy the affine detection (mixed periodic wrap, tiny classes)
@@ -266,11 +264,6 @@ class CompositeV2(LinearOperator):
     level_meta: Tuple = dataclasses.field(metadata=dict(static=True))
     grid_meta: Tuple = dataclasses.field(metadata=dict(static=True))
     symmetric: bool = dataclasses.field(default=False, metadata=dict(static=True))
-    # Fused-interface plan (ops.interface_kernel): STATIC so it survives
-    # pytree flattening through jit'd solvers; None = XLA tap path.
-    fused_plan: object = dataclasses.field(
-        default=None, metadata=dict(static=True)
-    )
     # A^T as a second CompositeV2 built from the transposed rows (pytree
     # child; None unless build_composite_v2(..., build_transpose=True)).
     # Gives the non-symmetric irregular operator a FAST-FORMAT rmatvec —
@@ -298,29 +291,9 @@ class CompositeV2(LinearOperator):
             k3 = jax.lax.slice(self.keep, (start,), (start + vol,)).reshape(
                 gshape
             )
-            # Shaped input: the Pallas kernel relayouts to its internal
-            # (nz, ny*nx) form at the XLA level (Mosaic cannot shape-cast
-            # arbitrary 1D blocks in-kernel).  The mask zeroes interface
-            # rows (replaced by interface_apply_full below) and dead slots
-            # (annihilated).
+            # The mask zeroes interface rows (replaced by
+            # interface_apply_full below) and dead slots (annihilated).
             y3.append(op.matvec(xg).reshape(gshape) * k3)
-        if self.fused_plan is not None:
-            from .interface_kernel import apply_fused_interface
-            from .pallas_kernels import pallas_supported
-
-            y3 = apply_fused_interface(
-                self.fused_plan, x3, y3, interpret=not pallas_supported()
-            )
-            y = jnp.concatenate([v.reshape(-1) for v in y3]) + self.diag * x
-            fb = self.fused_plan.fallback
-            if fb or self.ifc_buckets:
-                y = y + interface_apply_full(
-                    x3, x,
-                    tuple(self.grid_meta[i] for i in fb),
-                    tuple(self.grid_w[i] for i in fb),
-                    self.level_meta, self.ifc_buckets,
-                )
-            return y
         y = jnp.concatenate([v.reshape(-1) for v in y3]) + self.diag * x
         # Interface rows' stencil output is masked to exactly zero above, so
         # adding the full interface contribution is bitwise-identical to
@@ -355,13 +328,13 @@ class CompositeV2(LinearOperator):
     def matmat(self, X):
         """Y = A X for (M, b) blocks, with the interface work AMORTIZED.
 
-        The per-level stencil genuinely needs b independent kernel passes
-        (each column reads its own x — nothing to share), but the
-        interface classes and ELL tail are op-COUNT-bound, not
-        traffic-bound: applying each tap slice to a (..., b) array serves
-        every column in the same ~0.6 us op.  SpMM(b=8) therefore costs
-        ~b x the (cheap) stencil part + 1 x the (dominant) interface part,
-        instead of b x everything as the naive per-column map would.
+        The per-level stencil genuinely needs b independent passes (each
+        column reads its own x — nothing to share), but the interface
+        classes and ELL tail are op-COUNT-bound, not traffic-bound:
+        applying each tap slice to a (..., b) array serves every column in
+        the same op.  SpMM(b=8) therefore costs ~b x the stencil part + 1 x
+        the interface part, instead of b x everything as the naive
+        per-column map would.
         """
         b = X.shape[1]
         if b == 1:
@@ -439,7 +412,6 @@ def build_composite_v2(
     interior_weights=None,
     symmetric: bool = False,
     min_grid_rows: int = 16,
-    fuse_interface: bool = False,
     build_transpose: bool = False,
     extra_interface: np.ndarray | None = None,
 ) -> Tuple[CompositeV2, np.ndarray]:
@@ -719,16 +691,6 @@ def build_composite_v2(
     else:
         buckets = ()
 
-    plan = None
-    if fuse_interface and grid_meta:
-        from .interface_kernel import plan_interface_kernel
-
-        plan = plan_interface_kernel(
-            tuple(grid_meta),
-            tuple((a, ext, st) for (a, ext, st) in level_meta),
-            [np.asarray(w, np.float64) for w in grid_w],
-        )
-
     op_t = None
     if build_transpose and not symmetric:
         # Interface dilation: any row receiving an in-edge from an interface
@@ -740,8 +702,8 @@ def build_composite_v2(
         op_t, idx_map_t = build_composite_v2(
             lat, nbrsT, relsT, weightsT, diag, scale, dtype=dtype,
             interior_weights=interior_weights, symmetric=False,
-            min_grid_rows=min_grid_rows, fuse_interface=fuse_interface,
-            build_transpose=False, extra_interface=dil,
+            min_grid_rows=min_grid_rows, build_transpose=False,
+            extra_interface=dil,
         )
         assert (idx_map_t == idx_map).all()  # same lattice, same layout
 
@@ -755,7 +717,6 @@ def build_composite_v2(
         level_meta=tuple(level_meta),
         grid_meta=tuple(grid_meta),
         symmetric=symmetric,
-        fused_plan=plan,
         transpose_op=op_t,
     )
     return op, idx_map

@@ -1,8 +1,8 @@
 """Double-word (hi+lo fp32) operator application — the 1e-8 residual path.
 
 The reference reaches 1e-8-class eigenpair residuals trivially by running
-everything in fp64 (/root/reference/Python/Regular/Lanczos.py:75).  TPUs
-have no fast fp64; fp32-stored eigenvectors hit a hard TRUE-residual floor
+everything in fp64 (/root/reference/Python/Regular/Lanczos.py:75).  With an
+fp32 basis, fp32-stored eigenvectors hit a hard TRUE-residual floor
 of ~2*eps_f32 ~ 2.4e-7 (measured at solve level, tests/test_compensated.py)
 no matter how accurate the reductions are, because the vector itself cannot
 represent the eigenvector any better.  This module provides the missing
@@ -17,7 +17,7 @@ accurate dd addition, see ops.compensated); the x_lo contribution — already
 ~eps small — is applied in plain fp32 and folded in.  The result is a
 residual computation r = A x - lam x whose own rounding error sits at
 ~1e-14 relative, far below the 1e-8 target, while every array op remains
-fp32 elementwise VPU work (no fp64 emulation, bandwidth ~2x a plain SpMV
+fp32 elementwise work (bandwidth ~2x a plain SpMV
 per pass; the refinement driver calls this once per outer iteration, so the
 cost is negligible against the fp32 solve it polishes).
 
@@ -220,9 +220,9 @@ def matmat_dd(op, X_hi: jax.Array, X_lo: jax.Array):
     On CPU the columns run EAGERLY (lax.map would compile its body, and the
     XLA:CPU backend contracts ``a*b + c`` into FMA across the error-free-
     transform boundaries — measured to break double-word accuracy; neither
-    optimization_barrier nor --xla_allow_excess_precision stops it).  The
-    TPU compiler preserves the arithmetic exactly, so TPU keeps the
-    compiled path.
+    optimization_barrier nor --xla_allow_excess_precision stops it).
+    XLA:GPU keeps the arithmetic exact (measured by chip_smoke.py's
+    dd_compile_probe), so the GPU runs the compiled path.
     """
     if jax.default_backend() == "cpu":
         cols = [

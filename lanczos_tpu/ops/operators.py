@@ -1,4 +1,4 @@
-"""Linear-operator abstractions for the TPU Lanczos framework.
+"""Linear-operator abstractions for the Lanczos framework.
 
 The reference code decouples its eigensolver from the matrix format through the
 ``H*v`` SpMV contract (see /root/reference/Python/Regular/Lanczos.py:19-22,116).
@@ -9,17 +9,17 @@ XLA program.
 Three operator families:
 
 * :class:`DenseOperator` — small dense matrices (tests, 1D box problems).
-* :class:`EllOperator` — padded ELLPACK sparse format. This is the TPU-native
+* :class:`EllOperator` — padded ELLPACK sparse format, the static-shaped
   replacement for the reference's CSR (scipy / cupyx CSR at
   Regular/Lanczos.py:85-88): every row stores exactly K column indices and
   values, padded with zeros, so the SpMV is a static-shaped gather + multiply
-  + row-sum — no data-dependent shapes, XLA/Pallas friendly.
+  + row-sum — no data-dependent shapes.
 * :class:`StencilOperator` — matrix-free application of a constant-coefficient
   stencil on a periodic regular grid plus a diagonal term.  This covers the
   reference's regular Hamiltonians (Regular/Hamiltonian.py:20-25 builds the
   same 7/27-point stencils as explicit CSR) without storing the matrix at
-  all: ``y = sum_k w_k * roll(x, -off_k) + diag * x`` — the speed-of-light
-  HBM-bandwidth path on TPU.
+  all: ``y = sum_k w_k * roll(x, -off_k) + diag * x``, a bandwidth-bound
+  elementwise program that XLA fuses.
 """
 
 from __future__ import annotations
@@ -56,20 +56,8 @@ class LinearOperator:
     def dtype(self):
         raise NotImplementedError
 
-    @property
-    def vec_shape(self) -> Tuple[int, ...]:
-        """The layout this operator prefers its vectors in.
-
-        Defaults to flat (M,).  Operators whose kernel has an internal
-        tiled layout (StencilOperator's flat-plane Pallas layout) advertise
-        it here; solvers that carry their Krylov vectors in this shape
-        skip a per-SpMV HBM relayout (~50 us on the N=160^3 flagship,
-        measured on v5e — see ops/pallas_kernels.py module doc).
-        """
-        return (self.shape[0],)
-
     def matvec(self, x: jax.Array) -> jax.Array:
-        """y = A @ x for a vector x of shape (M,) or ``vec_shape``."""
+        """y = A @ x for a vector x of shape (M,)."""
         raise NotImplementedError
 
     def rmatvec(self, x: jax.Array) -> jax.Array:
@@ -138,7 +126,7 @@ class EllOperator(LinearOperator):
 
     This replaces the reference's CSR SpMV (cuSPARSE via cupyx at
     Regular/Lanczos.py:88,116) with a format whose row access pattern is
-    uniform — the shape XLA and Pallas want.
+    uniform — the static shape XLA wants.
     """
 
     cols: jax.Array  # (M, K) int32
@@ -238,9 +226,9 @@ class StencilOperator(LinearOperator):
     )
     # For full {-1,0,1}^3 stencils whose weight depends only on the number of
     # nonzero offset components ("graded" stencils — the 27-point Laplacian
-    # is one), the SpMV factorizes into 4 per-axis ring-circulant matmuls on
-    # the MXU instead of 27 HBM-bound rolls; ``graded`` holds the static
-    # weight ladder (w0, w1, w2, w3) when detected (see make_stencil_operator).
+    # is one), the SpMV factorizes per axis into 8 rolls instead of 26;
+    # ``graded`` holds the static weight ladder (w0, w1, w2, w3) when
+    # detected (see make_stencil_operator).
     graded: Optional[Tuple[float, float, float, float]] = dataclasses.field(
         default=None, metadata=dict(static=True)
     )
@@ -266,66 +254,26 @@ class StencilOperator(LinearOperator):
         return y
 
     def _apply_stencil_graded(self, xg: jax.Array) -> jax.Array:
-        """MXU path for graded {-1,0,1}^3 stencils (e.g. the 27-pt Laplacian).
+        """Graded {-1,0,1}^3 stencils (e.g. the 27-pt Laplacian) in 8 rolls.
 
-        With S_a = shift_+1 + shift_-1 along axis a (a ring circulant), a
-        graded stencil is
-            y = w0 x + w1 (Sx+Sy+Sz) x + w2 (SxSy+SySz+SzSx) x + w3 SxSySz x.
-        Nesting by axis needs only 4 circulant matmuls:
-            c1 = Sz x;   g01 = Sy x;   g11 = Sy c1
-            A  = w0 x + w1 (g01 + c1) + w2 g11
-            B  = w1 x + w2 (g01 + c1) + w3 g11
-            y  = A + Sx B
-        Each matmul is (N,N) x (N, N^2) — dense MXU work instead of 27
-        gather/rolls, cutting HBM traffic ~7x and riding the systolic array.
+        With S_a = shift_+1 + shift_-1 along axis a, a graded stencil is
+            y = w0 x + w1 (Sx+Sy+Sz) x + w2 (SxSy+SySz+SzSx) x + w3 SxSySz x
+              = w0 x + w1 Sy x + w1 Sz x + w2 Sz Sy x + Sx C,
+            C = w1 x + w2 Sy x + w2 Sz x + w3 Sz Sy x,
+        which applies each S_a a few times instead of 26 separate rolls.
         """
         w0, w1, w2, w3 = self.graded
-        nz, ny, nx = self.grid_shape
-        dt = xg.dtype
-        prec = jax.lax.Precision.HIGHEST
 
-        def ring(n):
-            i = jnp.arange(n)
-            m = jnp.zeros((n, n), dtype=dt)
-            m = m.at[i, (i + 1) % n].add(1.0)
-            m = m.at[i, (i - 1) % n].add(1.0)
-            return m
+        def s(a, axis):
+            return jnp.roll(a, 1, axis) + jnp.roll(a, -1, axis)
 
-        sz, sy, sx = ring(nz), ring(ny), ring(nx)
-        c1 = jnp.einsum("Zz,zyx->Zyx", sz, xg, precision=prec)
-        g01 = jnp.einsum("Yy,zyx->zYx", sy, xg, precision=prec)
-        g11 = jnp.einsum("Yy,zyx->zYx", sy, c1, precision=prec)
-        mid = g01 + c1
-        a = w0 * xg + w1 * mid + w2 * g11
-        b = w1 * xg + w2 * mid + w3 * g11
-        return a + jnp.einsum("Xx,zyx->zyX", sx, b, precision=prec)
-
-    @property
-    def _pallas_ok(self) -> bool:
-        """The Pallas slab kernel covers 3D nearest-neighbor stencils on TPU."""
-        from .pallas_kernels import pallas_supported
-
-        return (
-            len(self.grid_shape) == 3
-            and all(all(abs(o) <= 1 for o in off) for off in self.offsets)
-            and pallas_supported()
-        )
-
-    @property
-    def vec_shape(self):
-        if self._pallas_ok:
-            from .pallas_kernels import pallas_vec_shape
-
-            return pallas_vec_shape(self.grid_shape, self.dtype)
-        return (self.shape[0],)
+        sy = s(xg, 1)
+        sz = s(xg, 0)
+        szsy = s(sy, 0)
+        c = w1 * xg + w2 * sy + w2 * sz + w3 * szsy
+        return w0 * xg + w1 * sy + w1 * sz + w2 * szsy + s(c, 2)
 
     def matvec(self, x):
-        """x may be flat (M,) or shaped ``vec_shape`` (the fast TPU path —
-        skips the per-call layout conversion); y matches x's shape."""
-        if self._pallas_ok:
-            from .pallas_kernels import stencil_spmv_pallas
-
-            return stencil_spmv_pallas(self, x, interpret=False)
         in_shape = x.shape
         xg = x.reshape(self.grid_shape)
         y = self._apply_stencil(xg)
@@ -350,13 +298,6 @@ class StencilOperator(LinearOperator):
             y = y + self.diag.reshape(self.grid_shape) * xg
         return y.reshape(in_shape)
 
-    def matmat(self, X):
-        if self._pallas_ok:
-            from .pallas_kernels import stencil_spmm_pallas
-
-            return stencil_spmm_pallas(self, X, interpret=False)
-        return jax.vmap(self.matvec, in_axes=1, out_axes=1)(X)
-
     @property
     def is_symmetric_stencil(self) -> bool:
         """True when for every offset its negation appears with equal weight."""
@@ -368,7 +309,7 @@ class StencilOperator(LinearOperator):
         return True
 
     def to_ell(self) -> EllOperator:
-        """Materialize as an EllOperator (for the Pallas SpMV path / tests)."""
+        """Materialize as an EllOperator (sparse cross-checks and tests)."""
         from .assemble import stencil_to_ell
 
         return stencil_to_ell(self)

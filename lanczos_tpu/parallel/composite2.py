@@ -8,9 +8,9 @@ cross chips per SpMV is surface-proportional.  Decomposition:
 
 * BULK (per-level interior stencils, ~93% of rows): each level's region is
   cut into z-slabs, one per device; the SpMV is the same ppermute-halo
-  kernel as the sharded StencilOperator (parallel/distributed.py:
-  _stencil_local_matvec — single-chip Pallas kernel + two-plane halo
-  correction).  Traffic: 2 boundary planes per level per step.
+  code as the sharded StencilOperator (parallel/distributed.py:
+  _stencil_local_matvec — ring halo planes + local taps).  Traffic: 2
+  boundary planes per level per step.
 
 * INTERFACE (strided signature classes + block-ELL tail, the box-surface
   rows): every tap of every class reads a slab that is THIN along at least
@@ -25,10 +25,10 @@ cross chips per SpMV is surface-proportional.  Decomposition:
   z-portion of the result.  Exchanged bytes per device = run volume =
   O(surface), not O(P·D) as v1's face-table all-gathers.
 
-Interface COMPUTE is replicated across devices; that is the correct
-trade at current scale — the class applications are op-dispatch-bound
-face-sized slices (~0.6 us each regardless of device count), so sharding
-them would save nothing while requiring per-tap point-to-point schedules.
+Interface COMPUTE is replicated across devices: the class applications are
+face-sized slices whose cost is per operation rather than per byte, so
+sharding them would save little while requiring per-tap point-to-point
+schedules.
 
 Layout: device-major.  Device d owns, for every level, z-planes
 [d*nz_l/D, (d+1)*nz_l/D) of the level's region; its local vector is the
@@ -198,9 +198,6 @@ class ShardedCompositeV2(LinearOperator):
     mesh: jax.sharding.Mesh = dataclasses.field(metadata=dict(static=True))
     axis_name: str = dataclasses.field(metadata=dict(static=True))
     symmetric: bool = dataclasses.field(default=False, metadata=dict(static=True))
-    fused_plan: object = dataclasses.field(
-        default=None, metadata=dict(static=True)
-    )
 
     @property
     def shape(self):
@@ -235,9 +232,9 @@ class ShardedCompositeV2(LinearOperator):
             (a, ext, st) for (a, ext, st, sl, nzl) in level_meta
         )
 
-        # Per-level local stencil closures (ppermute halo + Pallas/roll
-        # kernel) — rebuilt per trace from static geometry; the weights
-        # arrays flow through shard_map inputs.
+        # Per-level local stencil closures (ppermute halo + local taps) —
+        # rebuilt per trace from static geometry; the weights arrays flow
+        # through shard_map inputs.
         from ..ops.operators import StencilOperator
 
         local_mvs = []
@@ -307,29 +304,9 @@ class ShardedCompositeV2(LinearOperator):
             # Single-device interface code on the reconstructed support
             # (replicated face-sized compute), then keep my z-portion.
             xs_flat = jnp.concatenate([v.reshape(-1) for v in xs3])
-            if self.fused_plan is not None:
-                from ..ops.interface_kernel import apply_fused_interface
-                from ..ops.pallas_kernels import pallas_supported
-
-                y3f = [jnp.zeros(ext, x_local.dtype) for ext in
-                       (lm[1] for lm in level_meta)]
-                y3f = apply_fused_interface(
-                    self.fused_plan, xs3, y3f,
-                    interpret=not pallas_supported(),
-                )
-                yifc = jnp.concatenate([v.reshape(-1) for v in y3f])
-                fb = self.fused_plan.fallback
-                if fb or buckets:
-                    yifc = yifc + interface_apply_full(
-                        xs3, xs_flat,
-                        tuple(grid_meta[i] for i in fb),
-                        tuple(grid_w[i] for i in fb),
-                        ifc_level_meta, buckets,
-                    )
-            else:
-                yifc = interface_apply_full(
-                    xs3, xs_flat, grid_meta, grid_w, ifc_level_meta, buckets
-                )
+            yifc = interface_apply_full(
+                xs3, xs_flat, grid_meta, grid_w, ifc_level_meta, buckets
+            )
             for li, (a, ext, st, sl, nzl) in enumerate(level_meta):
                 vol = ext[0] * ext[1] * ext[2]
                 yl3 = jax.lax.slice(yifc, (st,), (st + vol,)).reshape(ext)
@@ -441,7 +418,6 @@ def shard_composite_v2(
         mesh=mesh,
         axis_name=axis_name,
         symmetric=comp.symmetric,
-        fused_plan=comp.fused_plan,
     )
     host = ShardedCompositeV2Host(
         num_devices=D,

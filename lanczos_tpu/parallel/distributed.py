@@ -9,7 +9,7 @@ Design:
 * The entire n-step recurrence runs inside ONE ``shard_map``-wrapped jitted
   program; per-iteration reductions (dots, norms, Gram-Schmidt coefficients)
   are local partial sums fused with ``lax.psum`` over the mesh axis — the
-  allreduce rides the ICI, no host involvement.
+  allreduce runs between devices, with no host involvement.
 * StencilOperator SpMV: the grid's slowest axis is sharded; each step
   exchanges only the h boundary planes with ring neighbors via
   ``lax.ppermute`` (h = stencil depth, 1 for the 7/27-point stencils) and
@@ -39,6 +39,7 @@ from .mesh import ROWS
 
 __all__ = [
     "EllHaloOperator",
+    "ShardedStencilOperator",
     "lanczos_sharded",
     "shard_ell_halo",
     "shard_operator",
@@ -51,22 +52,13 @@ def _stencil_local_matvec(
     op: StencilOperator,
     num_devices: int,
     axis_name: str,
-    use_pallas: Optional[bool] = None,
 ):
     """Local SpMV for a z-sharded StencilOperator with ring halo exchange.
 
-    The hot path is the SAME Pallas slab kernel the single-chip solver uses
-    (ops.pallas_kernels), run z-periodically on the local slab; the only
-    rows where local periodicity differs from the global operator are the
-    first/last h output planes, which are fixed by a two-plane algebraic
-    correction built from the exchanged halos:
-
-        y[0]  += sum_{dz=-1 taps} w_k * shift_{dy,dx}(halo_prev - x[-1])
-        y[-1] += sum_{dz=+1 taps} w_k * shift_{dy,dx}(halo_next - x[0])
-
-    (the kernel used the wrapped local plane; the correction swaps in the
-    neighbor's plane).  This keeps single-chip and sharded hot paths
-    literally the same compiled kernel — VERDICT r1 weak #4.
+    Each device holds ``nz / num_devices`` z-planes.  The ``h`` boundary
+    planes (h = stencil depth) come from the ring neighbours through two
+    ``ppermute``s, and every tap is a z-slice of the halo-padded slab plus an
+    in-plane roll.
     """
     grid_shape = op.grid_shape
     nz = grid_shape[0]
@@ -80,53 +72,6 @@ def _stencil_local_matvec(
     fwd = [(i, (i + 1) % num_devices) for i in range(num_devices)]
     bwd = [(i, (i - 1) % num_devices) for i in range(num_devices)]
     rest_axes = tuple(range(1, len(grid_shape)))
-
-    from ..ops.pallas_kernels import _prep, _spmv_impl, pallas_supported
-
-    if use_pallas is None:
-        # Default to the kernel only where it runs compiled: interpret mode
-        # (CPU tests / dryrun) would turn every scan step into a slow
-        # emulation; the roll path is XLA-fast there and numerically
-        # identical (tests pin both).
-        use_pallas = (
-            pallas_supported()
-            and len(grid_shape) == 3
-            and halo <= 1
-            and all(abs(o) <= 1 for off in op.offsets for o in off)
-        )
-    if use_pallas:
-
-        offsets_t, ladder = _prep(op)
-        interpret = not pallas_supported()
-        local_grid = (nz_loc,) + tuple(rest)
-        plane_axes = tuple(range(len(rest)))
-
-        def local_matvec(weights, diag_local, x_local):
-            xg = x_local.reshape((nz_loc,) + rest)
-            from_prev = jax.lax.ppermute(xg[-1:], axis_name, fwd)
-            from_next = jax.lax.ppermute(xg[:1], axis_name, bwd)
-            y = _spmv_impl(
-                xg, diag_local, weights, local_grid, offsets_t, interpret,
-                ladder,
-            ).reshape((nz_loc,) + rest)
-            d_top = from_prev[0] - xg[-1]
-            d_bot = from_next[0] - xg[0]
-            c_top = jnp.zeros_like(d_top)
-            c_bot = jnp.zeros_like(d_bot)
-            for k, off in enumerate(op.offsets):
-                tail = tuple(-o for o in off[1:])
-                if off[0] == -1:
-                    c_top = c_top + weights[k] * (
-                        jnp.roll(d_top, tail, plane_axes) if any(tail) else d_top
-                    )
-                elif off[0] == 1:
-                    c_bot = c_bot + weights[k] * (
-                        jnp.roll(d_bot, tail, plane_axes) if any(tail) else d_bot
-                    )
-            y = y.at[0].add(c_top).at[nz_loc - 1].add(c_bot)
-            return y.reshape(-1)
-
-        return local_matvec
 
     def local_matvec(weights, diag_local, x_local):
         xg = x_local.reshape((nz_loc,) + rest)
@@ -159,6 +104,39 @@ def _stencil_local_matvec(
         return y
 
     return local_matvec
+
+
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class ShardedStencilOperator(StencilOperator):
+    """A StencilOperator whose grid is z-sharded over ``mesh``.
+
+    Built by :func:`shard_operator`.  ``matvec`` runs the ring-halo local
+    SpMV (``_stencil_local_matvec``) under ``shard_map``, so the restarted
+    solvers, which see ``mesh`` and ``axis_name``, keep their basis and
+    vectors row-sharded: each device holds ``1/D`` of the basis.
+    """
+
+    mesh: Optional[jax.sharding.Mesh] = dataclasses.field(
+        default=None, metadata=dict(static=True)
+    )
+    axis_name: str = dataclasses.field(default=ROWS, metadata=dict(static=True))
+
+    def matvec(self, x):
+        d = self.mesh.shape[self.axis_name]
+        local_mv = _stencil_local_matvec(self, d, self.axis_name)
+        row = P(self.axis_name)
+        diag_spec = row if self.diag is not None else P()
+        mapped = jax.shard_map(
+            local_mv, mesh=self.mesh, in_specs=(P(), diag_spec, row),
+            out_specs=row, check_vma=False,
+        )
+        return mapped(self.weights, self.diag, x.reshape(-1)).reshape(x.shape)
+
+    def matmat(self, X):
+        return jnp.stack(
+            [self.matvec(X[:, j]) for j in range(X.shape[1])], axis=1
+        )
 
 
 def _ell_local_matvec(axis_name: str):
@@ -278,7 +256,7 @@ def shard_ell_halo(
 def shard_operator(op: LinearOperator, mesh: jax.sharding.Mesh, axis_name: str = ROWS):
     """device_put the operator's arrays with their row-sharded layout.
 
-    Keeps HBM usage per chip at 1/P of the operator: ELL rows and the
+    Keeps device memory per device at 1/P of the operator: ELL rows and the
     diagonal are sharded; stencil weights are replicated.
     """
     if isinstance(op, EllOperator):
@@ -292,11 +270,14 @@ def shard_operator(op: LinearOperator, mesh: jax.sharding.Mesh, axis_name: str =
         if diag is not None:
             diag = jax.device_put(diag, NamedSharding(mesh, P(axis_name)))
         weights = jax.device_put(op.weights, NamedSharding(mesh, P()))
-        return StencilOperator(
+        return ShardedStencilOperator(
             weights=weights,
             diag=diag,
             grid_shape=op.grid_shape,
             offsets=op.offsets,
+            graded=op.graded,
+            mesh=mesh,
+            axis_name=axis_name,
         )
     from ..ops.composite import CompositeOperator, shard_composite
     from ..ops.composite2 import CompositeV2
@@ -330,7 +311,6 @@ def lanczos_sharded(
     reorth_passes: int = 2,
     reorth_period: int = 5,
     dtype=None,
-    use_pallas: Optional[bool] = None,
 ) -> LanczosFactorization:
     """Row-sharded n-step Lanczos over a device mesh.
 
@@ -373,9 +353,7 @@ def lanczos_sharded(
     )
 
     if isinstance(op, StencilOperator):
-        local_mv = _stencil_local_matvec(
-            op, num_devices, axis_name, use_pallas=use_pallas
-        )
+        local_mv = _stencil_local_matvec(op, num_devices, axis_name)
 
         def body(weights, diag, v0_local):
             return lanczos_kernel(

@@ -2,15 +2,16 @@
 
 The reference is single-process/single-GPU (SURVEY.md §2.2); this module is
 new capability: a 1D "rows" mesh over which the Krylov vectors and the
-operator's rows are sharded.  On real hardware the axis should map onto the
-ICI ring; in tests it maps onto 8 virtual CPU devices.
+operator's rows are sharded.  The mesh follows the algorithm alone (the
+cards of one host are joined all to all by NVLink); in tests it maps onto 8
+virtual CPU devices.
 
 Multi-host (SURVEY.md §2.2/§5.8): :func:`initialize_distributed` wires
 ``jax.distributed`` so every process sees the GLOBAL device list, and
 :func:`make_row_mesh` then builds the mesh over all of them.  Row
 partitioning keeps each device's slice local; the recurrence's psum'd
-dots/norms ride ICI within a slice and DCN across hosts, and since the mesh
-is 1D the collective layout needs no further tuning.  A two-process CPU
+dots/norms are NCCL all-reduces, and since the mesh is 1D the collective
+layout needs no further tuning.  A two-process CPU
 smoke test lives in tests/test_multihost.py (subprocess launch against a
 local coordinator, the fake-backend mechanism the reference lacks).
 """

@@ -11,10 +11,10 @@ recurrence collapses by iteration ~15 under scale-aware breakdown detection,
 or silently overflows by ~100 under the reference's scaling).  Arnoldi keeps
 ONE orthonormal basis (condition number 1 by construction), costs one matvec
 per step instead of two, needs no transpose operator, and its full
-orthogonalization is the same batched-matmul MXU pattern as the symmetric
-solver's reorthogonalization.  On TPU in fp32 it is strictly more robust at
-the same per-iteration cost; the projected problem is a small (n, n)
-Hessenberg eigensolve on the host.
+orthogonalization is the same batched-matmul pattern as the symmetric
+solver's reorthogonalization.  In fp32 it is strictly more robust at the
+same per-iteration cost; the projected problem is a small (n, n) Hessenberg
+eigensolve on the host.
 
 Krylov–Schur restarting (Stewart 2002) bounds the basis at m vectors, like
 solver/restart.py does for the symmetric path: after each cycle the Schur
@@ -85,7 +85,7 @@ def arnoldi_kernel(
 
     Orthogonalization is CGS with ``reorth_passes`` passes (CGS2 default —
     the classical twice-is-enough result); each pass is one (n+1, M) @ (M,)
-    matmul pair, the MXU-friendly form.
+    matmul pair.
     """
     if compensated:
         from ..ops.compensated import dot2_rounded

@@ -2,7 +2,7 @@
 
 New capability beyond the reference (single-vector only): iterate on a block
 of b vectors at once.  Each step does one operator application on an (M, b)
-block — the SpMM shape the TPU likes (the gather feeds b lanes per row) —
+block — the SpMM shape (one index read feeds b values per row) —
 and resolves degenerate eigenvalue clusters up to multiplicity b that
 single-vector Lanczos provably cannot separate.
 

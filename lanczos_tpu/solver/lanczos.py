@@ -1,20 +1,20 @@
 """Symmetric Lanczos recurrence as a single compiled XLA program.
 
-TPU-first redesign of the reference's eager Krylov loop
+Compiled redesign of the reference's eager Krylov loop
 (/root/reference/Python/Regular/Lanczos.py:75-141):
 
 * The whole n-step recurrence is one ``lax.scan`` under ``jit`` — no host
   round-trips between iterations (the reference crosses host<->GPU per step
   via CuPy and drives the loop from Python).
 * Full reorthogonalization is expressed as two (n,M) matmuls per pass
-  (classical Gram-Schmidt against the whole stored basis), the MXU-friendly
+  (classical Gram-Schmidt against the whole stored basis), the matmul
   form of the reference's batched reorthogonalization
   (Regular/Lanczos.py:233-251).  CGS is run twice ("CGS2") by default, which
   restores orthogonality to machine precision — unlike the reference's single
   pass.
 * The basis V is stored row-major (n, M) exactly as the reference does "for
-  cache reasons" (Lanczos.py:103) — on TPU this makes both reorth matmuls and
-  the Ritz back-transform contiguous.
+  cache reasons" (Lanczos.py:103) — this makes both reorth matmuls and the
+  Ritz back-transform contiguous.
 * Breakdown (beta ~ 0, i.e. an exact invariant subspace) is detected and
   recorded instead of dividing by ~0 like the reference's ``j=0 -> beta[-1]``
   quirk (Lanczos.py:111-113, documented in SURVEY.md §"quirks").
@@ -71,17 +71,15 @@ class LanczosFactorization:
         return self.V.shape[1]
 
 
-# All reductions in the recurrence run at Precision.HIGHEST: on TPU the
-# default matmul path decomposes f32 operands to bf16 (fast but ~1e-2
-# relative error), which destroys Krylov orthogonality.  HIGHEST selects the
-# multi-pass scheme with ~f32 accuracy at a small cost on these
-# bandwidth-bound matvec-like products.
+# All reductions in the recurrence run at Precision.HIGHEST: on the GPU a
+# default fp32 matmul may run in TF32 (about three decimal digits), which
+# destroys Krylov orthogonality.  HIGHEST keeps full fp32 at a small cost on
+# these bandwidth-bound matvec-like products.
 _PRECISION = jax.lax.Precision.HIGHEST
 
 
 def _default_dot(a, b):
-    # Vectors may carry any shape (e.g. the operator's vec_shape); contract
-    # over every axis.  dot_general with multiple contracting dims — no
+    # Vectors may carry any shape; contract over every axis.  dot_general with multiple contracting dims — no
     # reshape, no layout conversion.
     return jnp.tensordot(
         a, b, axes=a.ndim, precision=_PRECISION,
@@ -237,7 +235,7 @@ def lanczos_kernel(
         )
     if reorth not in ("full", "none", "periodic"):
         raise ValueError(f"unknown reorth strategy: {reorth!r}")
-    vshape = v0.shape  # any shape: flat (M,) or the operator's vec_shape
+    vshape = v0.shape
     m = int(np.prod(vshape))
     dtype = v0.dtype
 
@@ -407,9 +405,6 @@ def _lanczos_jit(
         )
     else:
         v0 = v0.astype(dtype)
-    # Carry the recurrence in the operator's preferred layout (one relayout
-    # here instead of two per SpMV — see ops/pallas_kernels.py module doc).
-    v0 = v0.reshape(getattr(op, "vec_shape", (m,)))
     return lanczos_kernel(
         op.matvec,
         v0,
@@ -437,7 +432,7 @@ def lanczos(
 
     Mirrors the contract of the reference's ``Lanczos.execute_Lanczos``
     (Regular/Lanczos.py:75: n, seed, v0) minus ``use_cuda`` — device placement
-    is JAX's job, the same code runs on CPU and TPU.
+    is JAX's job, the same code runs on CPU and GPU.
     """
     m = op.shape[0]
     if n > m:

@@ -81,9 +81,8 @@ class EigResult:
 def acceptance_inner_prod(op, X: jax.Array) -> jax.Array:
     """<(Ax/||Ax||), x>^2 per column of X — the reference's eigvec check.
 
-    Uses op.matmat (sequenced kernel calls), NOT vmap(op.matvec): vmap of a
-    pallas_call batches its BlockSpecs, which the Mosaic lowering rejects for
-    the flat-layout stencil kernel.
+    Uses op.matmat, so operators with their own block product (composites,
+    sharded operators) apply it.
     """
     AX = op.matmat(X)
     nrm = jnp.sqrt(jnp.sum(AX * AX, axis=0))

@@ -3,8 +3,7 @@
 Replaces the reference's host-side LAPACK call ``np.linalg.eigh(H_eff)``
 (/root/reference/Python/Regular/Lanczos.py:151) with a jitted on-device
 eigensolve of the (n, n) tridiagonal matrix, and the per-column Python loop of
-the Ritz back-transform (Lanczos.py:154-156) with one (M, n) x (n, k) matmul
-on the MXU.
+the Ritz back-transform (Lanczos.py:154-156) with one (M, n) x (n, k) matmul.
 """
 
 from __future__ import annotations
@@ -50,17 +49,18 @@ def ritz_from_factorization(fac) -> Tuple[jax.Array, jax.Array, jax.Array]:
 
     Returns (theta, X, resid_est):
       theta     (n,)   Ritz values, ascending.
-      X         (M, n) Ritz vectors, columns — X = V.T @ W, one MXU matmul
+      X         (M, n) Ritz vectors, columns — X = V.T @ W, one matmul
                        (the reference loops over columns, Lanczos.py:154-156).
       resid_est (n,)   ||A x_i - theta_i x_i|| estimated as beta_n * |W[n-1, i]|
                        (the classical Lanczos residual bound — free, no extra
                        matvec; beta_n = ||resid|| of the factorization).
     """
     theta, W = tridiag_eigh(fac.alpha, fac.beta)
-    # HIGHEST precision: the TPU default matmul decomposes f32 to bf16, which
-    # is not accurate enough for the back-transform.
-    X = jnp.dot(fac.V.T, W, precision=jax.lax.Precision.HIGHEST)  # (M, n)
-    beta_n = jnp.sqrt(jnp.dot(fac.resid, fac.resid))
+    # HIGHEST precision: a default fp32 matmul may run in TF32 (about three
+    # decimal digits), which is not accurate enough for the back-transform.
+    hi = jax.lax.Precision.HIGHEST
+    X = jnp.dot(fac.V.T, W, precision=hi)  # (M, n)
+    beta_n = jnp.sqrt(jnp.dot(fac.resid, fac.resid, precision=hi))
     resid_est = beta_n * jnp.abs(W[-1, :])
     return theta, X, resid_est
 

@@ -1,6 +1,6 @@
 """Two-sided (biorthogonal / non-Hermitian) Lanczos.
 
-TPU-native re-design of the reference's IrrLanczos.execute_Lanczos
+Compiled re-design of the reference's IrrLanczos.execute_Lanczos
 (/root/reference/Python/Irregular/IrrLanczos.py:77-187), needed for the
 non-symmetric Laplacian of the irregular multi-resolution lattice.
 
@@ -33,7 +33,7 @@ Differences from the reference (intentional, documented in SURVEY.md quirks):
     directly to the NON-symmetric T (IrrLanczos.py:291), which is only valid
     in that same regime but silently wrong otherwise;
   * two-sided full rebiorthogonalization is expressed as batched matmuls
-    against the stored bases (the MXU form of IrrLanczos.py:389-443);
+    against the stored bases (the matmul form of IrrLanczos.py:389-443);
   * per-iteration health telemetry (biorthogonality drift + recurrence
     residual, the reference's color-coded columns at IrrLanczos.py:147-160)
     is recorded INSIDE the scan as stacked outputs and summarized by

@@ -2,7 +2,9 @@
 
 Builds the same graph Laplacian as scripts/northstar.py and times
 scipy.sparse.linalg.eigsh(k, which="SA") on the host CPU — runnable in
-parallel with the TPU solve so the wall-clock race does not serialize.
+parallel with the device solve so the wall-clock race does not serialize.
+It keeps JAX on the CPU backend, so it never takes the GPU's memory from the
+solve beside it.
 Writes {out} with the timing (or the elapsed lower bound on timeout/kill).
 """
 
@@ -26,8 +28,12 @@ def main():
     ap.add_argument("--out", default="/tmp/northstar_scipy.json")
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    os.environ["JAX_PLATFORMS"] = "cpu"  # set before anything imports JAX
     from northstar import build_graph_laplacian_rows  # noqa: E402
+
+    from lanczos_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import scipy.sparse
     import scipy.sparse.linalg

@@ -2,7 +2,7 @@
 op-aware two-sided filtering.
 
 Oracles: dense host eig of the assembled matrix; fp64 runs as oracle for
-fp32 (the flagship precision on TPU)."""
+fp32 (the flagship precision on the GPU)."""
 
 import numpy as np
 import pytest

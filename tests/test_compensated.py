@@ -1,7 +1,7 @@
 """Error-free-transform reductions: exactness vs fp64/fp128 oracles.
 
 The reference sidesteps reduction error by running fp64 end-to-end
-(/root/reference/Python/Regular/Lanczos.py, dtype=np.float64); the TPU
+(/root/reference/Python/Regular/Lanczos.py, dtype=np.float64); this
 framework runs fp32 and recovers the accuracy with compensated dots
 (lanczos_tpu/ops/compensated.py).  These tests pin the claimed error bounds
 on the CPU backend (conftest forces cpu + x64).

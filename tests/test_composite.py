@@ -1,4 +1,4 @@
-"""CompositeOperator (TPU-fast irregular SpMV) vs the padded-ELL oracle.
+"""CompositeOperator (stencil-form irregular SpMV) vs the padded-ELL oracle.
 
 The composite multi-level operator must be numerically identical (fp64) to
 the EllOperator assembled from the same lattice, for both matvec and

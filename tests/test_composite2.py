@@ -176,41 +176,6 @@ def test_graph_laplacian_symmetric_matvec():
     np.testing.assert_allclose(yr_op[idx_map], y_ref, atol=1e-9, rtol=1e-9)
 
 
-def test_fused_interface_kernel_matches():
-    """Fused Pallas interface kernel (ROADMAP r4 item 1) == the XLA tap
-    path, bitwise-class: same fp32-stored weights, interpret mode here,
-    compiled Mosaic on the chip."""
-    import jax.numpy as jnp
-
-    lat = _mixed_lattice(n=24)
-    t_factor = kinetic_prefactor(lat.s)
-    nbrs, rels, weights = irregular_laplacian_rows(lat)
-    diag = t_factor * weights.sum(axis=1)
-    kw = dict(
-        scale=-t_factor, dtype=np.float64, min_grid_rows=4,
-    )
-    comp_ref, idx_map = build_composite_v2(lat, nbrs, rels, weights, diag, **kw)
-    comp_fused, idx2 = build_composite_v2(
-        lat, nbrs, rels, weights, diag, fuse_interface=True, **kw
-    )
-    np.testing.assert_array_equal(idx_map, idx2)
-    assert comp_fused.fused_plan is not None
-    assert len(comp_fused.fused_plan.classes) > 0
-    # 2:1-graded lattice: every class covered, no fallback
-    assert comp_fused.fused_plan.fallback == ()
-    rng = np.random.default_rng(0)
-    x = np.zeros(comp_ref.shape[0])
-    x[idx_map] = rng.normal(size=lat.num_points)
-    y_ref = np.asarray(comp_ref.matvec(jnp.asarray(x)))
-    y_fused = np.asarray(comp_fused.matvec(jnp.asarray(x)))
-    np.testing.assert_allclose(y_fused, y_ref, rtol=1e-13, atol=1e-13)
-    # and under jit (the plan rides the static pytree field)
-    import jax
-
-    y_jit = np.asarray(jax.jit(comp_fused.matvec)(jnp.asarray(x)))
-    np.testing.assert_allclose(y_jit, y_ref, rtol=1e-13, atol=1e-13)
-
-
 def test_nonsym_transpose_rmatvec_matches_ell_transpose(ops):
     """build_transpose=True materializes A^T in v2 format: rmatvec must
     equal the scipy/ELL transpose on the genuinely non-symmetric LSQ
@@ -286,33 +251,3 @@ def test_nonsym_two_sided_runs_on_v2(ops):
     # operator EXACTNESS is pinned by the rmatvec test above — this checks
     # the transpose path drives a correct biorthogonal recurrence.
     np.testing.assert_allclose(vals[-3:], exact[-3:], rtol=1e-5)
-
-
-def test_fused_interface_vmem_budget_falls_back(monkeypatch):
-    """When the planned VMEM-resident operand volume exceeds the budget the
-    plan must route every class to the XLA path (advisor r4: the gridless
-    whole-array pallas_call cannot compile past ~120 MB) — and the matvec
-    must stay numerically identical."""
-    import jax.numpy as jnp
-
-    monkeypatch.setenv("LANCZOS_IFACE_VMEM_MB", "0.001")
-    lat = _mixed_lattice(n=24)
-    t_factor = kinetic_prefactor(lat.s)
-    nbrs, rels, weights = irregular_laplacian_rows(lat)
-    diag = t_factor * weights.sum(axis=1)
-    kw = dict(scale=-t_factor, dtype=np.float64, min_grid_rows=4)
-    comp_ref, idx_map = build_composite_v2(lat, nbrs, rels, weights, diag, **kw)
-    comp_budget, _ = build_composite_v2(
-        lat, nbrs, rels, weights, diag, fuse_interface=True, **kw
-    )
-    plan = comp_budget.fused_plan
-    assert plan is not None and plan.classes == ()
-    assert len(plan.fallback) == len(comp_budget.grid_meta)
-    rng = np.random.default_rng(0)
-    x = np.zeros(comp_ref.shape[0])
-    x[idx_map] = rng.normal(size=lat.num_points)
-    np.testing.assert_allclose(
-        np.asarray(comp_budget.matvec(jnp.asarray(x))),
-        np.asarray(comp_ref.matvec(jnp.asarray(x))),
-        rtol=1e-13, atol=1e-13,
-    )
